@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Accuracy + speed harness (TPU-native equivalent of
-/root/reference/evaluation/{simulation,real}/calculate_read_cost.py).
+"""Accuracy + speed harness (equivalent of HISAT2's
+evaluation/{simulation,real}/calculate_read_cost.py).
 
 Given a truth SAM (from `python -m hisat2_tpu simulate-reads`) and one or
 more aligner outputs, reports per-aligner:

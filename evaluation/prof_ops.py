@@ -1,4 +1,4 @@
-"""Microbench: genome-scale-shaped hot ops on the attached TPU.
+"""Microbench: genome-scale-shaped hot ops on the attached device.
 
 Builds FAKE (random-content, correct-shape) index planes at the
 config-6 shard shape (1.9 Gbp) and times the round-5 sparse/compacted

@@ -1,19 +1,18 @@
-"""hisat2_tpu — a TPU-native graph-genome spliced read aligner.
+"""hisat2_tpu — a JAX graph-genome spliced read aligner.
 
-A brand-new JAX/XLA framework with the capabilities of HISAT2
-(reference: /root/reference, hisat2 v2.1.0): FM-index based alignment of
-DNA/RNA sequencing reads against a reference genome (+ variants), re-designed
-for TPU hardware:
+A JAX/XLA framework with the capabilities of HISAT2 (hisat2 v2.1.0):
+FM-index based alignment of DNA/RNA sequencing reads against a reference
+genome (+ variants), re-designed as batched array programs for an
+accelerator (an NVIDIA H100 GPU):
 
-  - the FM index is laid out as dense integer arrays in HBM
+  - the FM index is laid out as dense integer arrays in device memory
     (packed 2-bit BWT words + rank checkpoints + sampled suffix array),
   - search runs as *batched wavefronts*: thousands of reads advance one
-    LF-mapping step per fused device loop iteration (lax.scan; PERF.md
-    documents the measured reasons a Pallas kernel does not beat XLA's
-    gather floor on this path),
+    LF-mapping step per fused device loop iteration (lax.scan; no
+    hand-written kernel — XLA compiles the plain jax.numpy/lax code),
   - coordinate resolution, extension and scoring are batched gathers/compares
     over the packed reference,
-  - multi-chip scaling shards the read stream over a jax.sharding.Mesh and
+  - multi-device scaling shards the read stream over a jax.sharding.Mesh and
     merges summaries/splice tables with collectives (no mutexes, no threads).
 
 Package layout:

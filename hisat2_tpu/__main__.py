@@ -1,16 +1,19 @@
 """Command dispatcher: python -m hisat2_tpu {align,build,inspect} ...
 
 The reference ships three binaries (hisat2-align, hisat2-build,
-hisat2-inspect, /root/reference/hisat2_main.cpp etc.); this multiplexes them
-behind one module entry point.  `align` is the default when the first
-argument is an option (so `python -m hisat2_tpu -x idx -U r.fq` works).
+hisat2-inspect; hisat2_main.cpp etc.); this multiplexes them behind one
+module entry point.  `align` is the default when the first argument is an
+option (so `python -m hisat2_tpu -x idx -U r.fq` works).  main(argv) can
+also be called in-process, as chip_smoke.py does.
 """
 
 import sys
 
 
-def main():
-    argv = sys.argv[1:]
+def main(argv=None):
+    from .utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
+    argv = list(sys.argv[1:] if argv is None else argv)
     cmd = "align"
     if argv and not argv[0].startswith("-"):
         cmd = argv[0]

@@ -16,7 +16,7 @@ import time
 
 def build_parser():
     p = argparse.ArgumentParser(
-        prog="hisat2-tpu", description="TPU-native spliced read aligner")
+        prog="hisat2-tpu", description="JAX spliced read aligner")
     p.add_argument("-x", dest="index", required=True, help="index basename")
     p.add_argument("-U", dest="unpaired", default=None,
                    help="comma-separated unpaired read files")
@@ -112,7 +112,7 @@ def build_parser():
                    help="this host's rank in [0, n_hosts)")
     p.add_argument("--coordinator", default=None,
                    help="jax.distributed coordinator address:port "
-                        "(required on multi-host TPU pods)")
+                        "(for processes on several hosts)")
     p.add_argument("-u", "--upto", "--qupto", dest="upto", type=int,
                    default=None, help="align at most this many reads")
     p.add_argument("-s", "--skip", dest="skip", type=int, default=0,

@@ -16,7 +16,7 @@ import time
 def main(argv=None):
     p = argparse.ArgumentParser(
         prog="hisat2-tpu-build",
-        description="Build a TPU-native FM index from FASTA")
+        description="Build an FM index from FASTA")
     p.add_argument("fasta", help="comma-separated FASTA file(s)")
     p.add_argument("base", help="output index basename (.npz)")
     p.add_argument("-o", "--offrate", type=int, default=None,

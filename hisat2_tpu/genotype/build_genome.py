@@ -12,7 +12,7 @@ shift applied.
 
 Outputs (<base>.fa .locus .snp .index.snp .haplotype .link .coord
 .clnsig .partial) feed `hisat2_tpu build --snp --haplotype` directly —
-the TPU graph index replaces the reference's hisat2-build subprocess.
+this repo's graph index replaces the reference's hisat2-build subprocess.
 """
 
 from __future__ import annotations

@@ -11,8 +11,8 @@ reference uses.  Alleles below a tenth of the max drop after 10
 iterations (select_alleles) — the reference's convergence accelerator.
 
 The vectorized formulation: classes form a sparse membership matrix
-M [n_classes, n_alleles]; one EM step is two matrix products — MXU
-work at scale, numpy here (class counts are tiny after collapsing).
+M [n_classes, n_alleles]; one EM step is two matrix products — numpy
+here (class counts are tiny after collapsing).
 """
 
 from __future__ import annotations

@@ -596,7 +596,7 @@ def _exon_str(exons, res, ref_allele, strand):
 
 def _remap_backbone(genome_index, ref_seq):
     """Place the (gap-free) reference-allele sequence on the genome with
-    our aligner — the tpu-native analog of the reference's hisat2
+    our aligner — the in-process analog of the reference's hisat2
     subprocess remap."""
     import numpy as _np
 

@@ -1,4 +1,4 @@
-"""FM index construction: FASTA -> suffix array -> packed TPU layout.
+"""FM index construction: FASTA -> suffix array -> packed device layout.
 
 The reference builds its index with Kärkkäinen blockwise suffix sorting
 (/root/reference/blockwise_sa.h) or, for graph indexes, GCSA prefix doubling
@@ -154,7 +154,7 @@ CHUNK_ROWS = 1 << 26
 def build_fm_index(seqs, off_rate: int = None,
                    ftab_k: int = DEFAULT_FTAB_K,
                    shard_bp: int = None):
-    """Build the full TPU-layout FM index from [(name, codes), ...].
+    """Build the full device-layout FM index from [(name, codes), ...].
 
     off_rate None picks adaptively: genomes under 128 Mbp store the FULL
     suffix array (off_rate 0 — SA resolution becomes one HBM gather, the
@@ -204,7 +204,7 @@ def build_fm_index(seqs, off_rate: int = None,
 
 def _build_single(joined, frag_joined, frag_ref, frag_off,
                   ref_names, ref_lens, off_rate, ftab_k) -> FMIndex:
-    """Derive the packed TPU layout from the suffix array.
+    """Derive the packed device layout from the suffix array.
 
     Every per-row derivation (BWT chars, bigram plane, occ checkpoints,
     SA-sample marks) streams over the SA in 64 M-row chunks: the old

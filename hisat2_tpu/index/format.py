@@ -1,4 +1,4 @@
-"""TPU-native FM index: dense-array layout + on-disk .npz format.
+"""Device FM index: dense-array layout + on-disk .npz format.
 
 This replaces the reference's pointer-rich blocked "side" layout
 (/root/reference/gfm.h:147-182, 325-520) with a flat two-level structure that
@@ -147,10 +147,9 @@ class FMIndex:
             arrs["mark_words"] = np.zeros(1, np.uint32)
             arrs["mark_chk"] = np.zeros(1, np.int32)
         # pad ref_words to a multiple of 128: ref_chars_block gathers
-        # word ROWS (2 descriptors per diagonal) instead of scalar words
-        # — the TPU gather path is descriptor-bound, and genome-scale
-        # operands additionally need the 128-word-row reshape to hit the
-        # fast gather lowering without a re-tiling scratch (ops/rank.py)
+        # word ROWS (2 per diagonal) instead of scalar words, and
+        # genome-scale operands take its 128-word-row branch
+        # (ops/rank.py)
         rw = np.asarray(arrs["ref_words"])
         if len(rw) % 128:
             arrs["ref_words"] = np.concatenate(
@@ -208,8 +207,8 @@ class ShardedFMIndex:
     aligner runs all shards and rebases candidates into a GLOBAL joined
     space (shard_bases[s] + local).  The reference handles >2^32 genomes
     with its 64-bit -align-l flavor (hisat2:444-457); int32 positions on
-    the TPU favor sharding instead, which is also the natural multi-chip
-    index-distribution axis."""
+    the device favor sharding instead, which is also the natural
+    multi-device index-distribution axis."""
     shards: list
     shard_bases: list
 

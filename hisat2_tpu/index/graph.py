@@ -2,7 +2,7 @@
 
 The reference encodes variants into the GBWT itself (GFM over a variation
 graph) plus an ALTDB consulted during extension (alignWithALTs_recur,
-/root/reference/hi_aligner.h:2586-3377).  The TPU-native design keeps the
+hi_aligner.h:2586-3377).  The design here keeps the
 *search* on the linear FM index (anchors are exact stretches of the
 reference) and makes the *extension* variant-aware, which recovers
 alignments through known variants whenever an anchor exists on either side

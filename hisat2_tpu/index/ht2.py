@@ -9,7 +9,7 @@ gfm.h:1813-1825).
 Strategy: a `.ht2` set fully determines the reference sequence (.3/.4
 RefRecords + 2-bit stream), the names/lengths (.1 header tail) and the
 variant database (.7/.8 ALTs in joined coordinates).  We decode those and
-rebuild the TPU-native index with our own builder — the GBWT/FM payload of
+rebuild this repo's index with our own builder — the GBWT/FM payload of
 .1/.2/.5/.6 is never needed, because the builder reconstructs an
 equivalent (linear FM + variant planes) layout directly.  `.ht2` files are
 always 32-bit little-endian (the 64-bit flavor uses the `.ht2l`
@@ -228,7 +228,7 @@ def _record_maps(base):
 
 
 def convert_ht2(base: str, cache_base: str = None):
-    """Build a TPU-native index (+ VariantDB when the .ht2 carries ALTs)
+    """Build this repo's index (+ VariantDB when the .ht2 carries ALTs)
     from a reference .ht2 index set.  Caches beside the .ht2 files when
     the directory is writable, else under /tmp keyed by absolute path.
 
@@ -241,7 +241,7 @@ def convert_ht2(base: str, cache_base: str = None):
     if cache_base is None:
         d = os.path.dirname(os.path.abspath(base)) or "."
         if os.access(d, os.W_OK):
-            cache_base = base + ".tpu"
+            cache_base = base + ".conv"
         else:
             key = os.path.abspath(base).replace("/", "_")
             os.makedirs("/tmp/hisat2_tpu_ht2cache", exist_ok=True)

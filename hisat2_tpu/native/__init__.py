@@ -2,9 +2,9 @@
 
 The compute path is JAX/XLA on the device; host-side throughput pieces
 mirror the reference's C++ roles (blockwise_sa.h suffix sorting, pat.h
-parsing).  Sources live in native/ at the repo root; they compile on demand
-into a cached shared object (no pip/pybind dependency — plain g++ + ctypes,
-matching the environment's baked-in toolchain).
+parsing).  Sources live in native/ at the repo root; they compile at first
+use into native/build/ (not committed; keyed by the host CPU, since they are
+built with -march=native) — no pip/pybind dependency, plain g++ + ctypes.
 """
 
 from __future__ import annotations
@@ -22,17 +22,39 @@ _BUILD_DIR = os.path.join(_SRC_DIR, "build")
 _libs = {}
 
 
+def _host_tag() -> str:
+    """Short hash of this CPU's feature flags: -march=native objects are
+    keyed by it, so a library built on one host is never loaded on
+    another."""
+    import hashlib
+    import platform
+    flags = platform.machine()
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith(("flags", "Features")):
+                    flags += line
+                    break
+    except OSError:
+        pass
+    return hashlib.sha1(flags.encode()).hexdigest()[:10]
+
+
 def _build(name: str, srcs) -> str:
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    so = os.path.join(_BUILD_DIR, f"lib{name}.so")
+    so = os.path.join(_BUILD_DIR, f"lib{name}-{_host_tag()}.so")
     stale = not os.path.exists(so) or any(
         os.path.getmtime(os.path.join(_SRC_DIR, s)) > os.path.getmtime(so)
         for s in srcs)
     if stale:
+        # build to a private name, then rename: concurrent first users
+        # (test workers, multi-process runs) never load a partial file
+        tmp = f"{so}.{os.getpid()}.tmp"
         cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-               "-std=c++17", "-o", so]
+               "-std=c++17", "-o", tmp]
         cmd += [os.path.join(_SRC_DIR, s) for s in srcs]
         subprocess.run(cmd, check=True, capture_output=True)
+        os.replace(tmp, so)
     return so
 
 
@@ -67,8 +89,8 @@ def get_samfmt():
     try:
         lib = ctypes.CDLL(_build("samfmt", ["samfmt.c"]))
     except (OSError, subprocess.CalledProcessError) as e:
-        print(f"[native] samfmt unavailable ({e}); python writer loop",
-              file=sys.stderr)
+        print(f"[native] samfmt unavailable ({e}); SAM output falls back "
+              f"to the slower Python writer loop", file=sys.stderr)
         _libs["samfmt"] = None
         return None
     lib.sam_render_batch.restype = ctypes.c_int

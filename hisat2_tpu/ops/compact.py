@@ -1,14 +1,14 @@
-"""Small-axis gather / sort replacements for the TPU hot path.
+"""Small-axis gather / sort replacements for the candidate hot path.
 
-TPU gathers are descriptor-bound: `take_along_axis` over a short axis
-(candidate slots, C/J <= ~150) runs at ~50 M elements/s regardless of
-payload, and XLA's sort lowers to dozens of bitonic passes.  For those
-widths a masked reduction — broadcast-compare the index against an iota
-and reduce — is pure VPU work that XLA fuses into a handful of passes,
-measured ~50-100x faster at the [B~16K, J~50] shapes the candidate
-pipeline uses.  (The reference has no analog: its per-read C++ touches
-one candidate at a time; this file is what makes the *batched* candidate
-bookkeeping TPU-shaped.)
+`take_along_axis` over a short axis (candidate slots, C/J <= ~150) is a
+gather per element, and XLA's sort lowers to many bitonic passes.  For
+those widths a masked reduction — broadcast-compare the index against an
+iota and reduce — is elementwise work that XLA fuses into a handful of
+passes.  The choice was made for another accelerator; whether it pays on
+the H100 at the [B~16K, J~50] shapes the candidate pipeline uses is not
+measured (ROADMAP C2).  (The reference has no analog: its per-read C++
+touches one candidate at a time; this file serves the *batched*
+candidate bookkeeping.)
 
 Use these ONLY for small J — the work is O(B * M * J).
 """

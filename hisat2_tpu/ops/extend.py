@@ -1,7 +1,7 @@
 """Batched ungapped extension + scoring over the packed reference.
 
-TPU-native reshaping of GenomeHit::extend / alignWithALTs_recur
-(/root/reference/hi_aligner.h:1891-3377): instead of a per-read recursive
+Batched reshaping of GenomeHit::extend / alignWithALTs_recur
+(hi_aligner.h:1891-3377): instead of a per-read recursive
 byte-compare against BitPairReference::getStretch, every candidate
 (read lane, genome start) becomes one vector lane; the whole read is gathered
 from the 2-bit reference and compared in one fused pass, with
@@ -298,9 +298,8 @@ def extend_grouped(ref_words, n_text: int, reads, quals, lens,
         # hi_aligner.h:3700-3702 exactly)
         if uniform_len:
             # all lens == L (STATIC flag, the padded-batch common case):
-            # P[len-b] is a pure reversal — the general per-lane gather
-            # below is the single most expensive op of the device step
-            # (~14 ns/element on the TPU's gather path)
+            # P[len-b] is a pure reversal, which avoids the general
+            # per-lane gather below
             p_at = jnp.flip(P, -1)
             r_at = jnp.flip(run_r, -1)
         else:
@@ -381,12 +380,11 @@ def extend_grouped(ref_words, n_text: int, reads, quals, lens,
             cr_w = jnp.where((crw_raw > 0) & (crw_raw <= Tl - 1),
                              crw_raw, 0)
 
-            # form scores WITHOUT per-element gathers (a take_along at
-            # [B,C,TW] costs ~20 ns/element and regressed the 1 Mbp
-            # config 5x): the left index is the position itself, so
-            # P/Cc at cl are aligned SLICES; only P at the anchor end
-            # a1 and the trim3 cost at cr (quality-prefix quirk,
-            # hi_aligner.h:3700) need one gather each
+            # form scores WITHOUT per-element gathers over [B,C,TW]:
+            # the left index is the position itself, so P/Cc at cl are
+            # aligned SLICES; only P at the anchor end a1 and the trim3
+            # cost at cr (quality-prefix quirk, hi_aligner.h:3700) need
+            # a dynamic index each
             maskL = (aw > 0) & (aw <= Tl)
             maskR = (crw_raw > 0) & (crw_raw <= Tl - 1)
             P_a = P[..., :TW]
@@ -394,11 +392,10 @@ def extend_grouped(ref_words, n_text: int, reads, quals, lens,
             # P at the anchor end a1 equals P at the anchor start a —
             # the run [a, a1) is penalty-free by construction — so the
             # only dynamic index left is the trim3 cost at cr.  Resolve
-            # it with a static select chain (a take_along here is a
-            # ~20 ns/element gather: 74 ms of the 104 ms extend step on
-            # the 1 Mbp config); cr is capped by trimMax-1, clamped to
-            # 32 (alt forms with >32-column clips cannot arise below
-            # ~320 bp reads at default scoring)
+            # it with a static select chain instead of a take_along
+            # gather; cr is capped by trimMax-1, clamped to 32 (alt
+            # forms with >32-column clips cannot arise below ~320 bp
+            # reads at default scoring)
             KCR = int(min(TW, 32))
             C_cr = jnp.zeros_like(cr_w)
             for b in range(1, KCR):

@@ -1,19 +1,19 @@
 """Batched rank / LF-mapping primitives (jnp; the hot inner ops).
 
-These are the TPU-native equivalents of the reference's per-row side walk:
-  countBt2Side  (/root/reference/gfm.h:2557-2625)  -> rank()
-  mapLF         (/root/reference/gfm.h:3280-3357)  -> lf()
+These are the batched equivalents of the reference's per-row side walk:
+  countBt2Side  (gfm.h:2557-2625)  -> rank()
+  mapLF         (gfm.h:3280-3357)  -> lf()
 Every function is vectorized over a lane axis: one call advances a whole
 batch of rows.  rank = occ checkpoint (gather) + masked popcount over the
 8 packed uint32 words of a 128-row block; XLA fuses the bit-math into a few
-VPU ops per lane, the HBM traffic is the two gathers.
+elementwise ops per lane, and the device-memory traffic is the gather.
 
-PERFORMANCE RULE (hard-won): never materialize jnp arrays at module/trace
-scope (jnp.uint32(...), module-level jnp.arange, closed-over device arrays).
-They embed as captured device-buffer constants in the executable, which the
-runtime treats far more expensively than program literals (~50x per op
-measured on v5e).  Constants here are numpy scalars (folded into the HLO as
-literals); all real arrays are function ARGUMENTS.
+CONSTANTS RULE: never materialize jnp arrays at module/trace scope
+(jnp.uint32(...), module-level jnp.arange, closed-over device arrays).
+They embed as captured device-buffer constants in the executable instead
+of program literals.  Constants here are numpy scalars (folded into the
+HLO as literals); all real arrays are function ARGUMENTS.  What a captured
+constant costs on the H100 is not measured (ROADMAP C2).
 
 All row indices are int32; packed words are uint32.
 """
@@ -65,8 +65,8 @@ def rank(blocked, zrow: int, i, c):
     """# occurrences of char c in bwt[0:i), '$' excluded.  i,c: int32 [B].
 
     blocked: the fused [nblocks+1, 12+] layout (index.format.fuse_blocked)
-    — occ checkpoint + the block's 8 BWT words in ONE gathered row (two
-    separate gathers cost ~2x on the TPU's descriptor-bound gather path).
+    — occ checkpoint + the block's 8 BWT words in ONE gathered row, so
+    one gather serves both.
     """
     return rank_from_rows(blocked[i >> 7], i, c, zrow)
 
@@ -114,33 +114,44 @@ def is_marked(mark_words, i):
 
 def ref_char(ref_words, pos):
     """Joined-reference char at position pos (2-bit gather; getStretch
-    equivalent, /root/reference/reference.h:59)."""
+    equivalent, reference.h:59)."""
     w = ref_words[pos >> 4]
     return ((w >> (2 * (pos & 15)).astype(jnp.uint32)) & np.uint32(3)
             ).astype(jnp.int32)
 
 
-# row-gather scratch gate: gathering rows of a reshape(nw//8, 8) view
-# re-tiles the operand minor-dim 8 -> 128, a 16x O(genome) scratch copy
-# per executable — fine up to 512 MB of scratch (8M words = 128 Mbp),
-# prohibitive at genome scale (7.7 GB on a 1.9 Gbp shard).  Above the
-# gate, genome-scale operands use the 128-word-row path below (module
-# constant so tests can force the big path on small fixtures).
+# branch gate: above 8M words (134.2 Mbp of joined text) a 128-padded
+# operand takes the 128-word-row branch of ref_chars_block.  The gate was
+# sized for a tiled device layout in which the [nw//8, 8] view costs a
+# scratch copy of the whole text; whether one branch serves every size on
+# the H100 is open (ROADMAP C2).  A module constant, so tests can force
+# the 128-word-row branch on small fixtures.
 _ROW8_MAX_WORDS = 8 << 20
+
+
+def ref_chars_branch(nw: int) -> str:
+    """Which gather branch ref_chars_block takes for a ref_words operand
+    of nw words: 'row128', 'row8', 'slice8' or 'word'."""
+    if nw % 128 == 0 and nw > _ROW8_MAX_WORDS:
+        return "row128"
+    if nw % 8 == 0:
+        return "row8" if nw <= _ROW8_MAX_WORDS else "slice8"
+    return "word"
 
 
 def ref_chars_block(ref_words, n_text: int, start, L: int):
     """Chars ref[start + t] for t in [0, L): [..., L] int32, 4 where the
     position leaves the text.
 
-    One scalar word-gather per CHAR (ref_char over a [N,C,L] position
-    grid) is descriptor-bound on TPU; this gathers each diagonal's
-    packed words and extracts the chars with a one-hot select + shift —
-    pure VPU work.  When ref_words is padded to a multiple of 8 (done by
+    Instead of one scalar word-gather per CHAR (ref_char over a [N,C,L]
+    position grid), this gathers each diagonal's packed words and
+    extracts the chars with a one-hot select + shift (elementwise work).
+    When ref_words is padded to a multiple of 8 (done by
     FMIndex.to_device), the gather fetches 8-word ROWS: the span of
     W + 7 <= 15 consecutive words always fits in 2 rows, so each
-    diagonal costs 2 gather descriptors instead of W (the select widens
-    to 16 one-hots, but that is cheap VPU work)."""
+    diagonal costs 2 row gathers instead of W word gathers (the select
+    widens to 16 one-hots).  Which of the branches pays on the H100 is
+    not measured (ROADMAP C2)."""
     W = L // 16 + 2
     w0 = start >> 4                                       # [..., C]
     rel = (start & 15)[..., None]                         # char offset in w0
@@ -148,17 +159,13 @@ def ref_chars_block(ref_words, n_text: int, start, L: int):
     t = jnp.arange(L, dtype=jnp.int32)
     bitpos = rel + t                                      # broadcast [..., L]
     sh = (2 * (bitpos & 15)).astype(jnp.uint32)
-    if nw % 128 == 0 and nw > _ROW8_MAX_WORDS:
-        # genome-scale: reshape to 128-word rows — minor dim exactly one
-        # (8, 128) tile lane row, so the reshape is layout-compatible
-        # (NO re-tiling scratch; verified via memory_analysis, round 5)
-        # and the row gather takes the TPU's fast gather path (~11 ns/
-        # row vs ~1.6 us/descriptor for a flat lax.gather slice — the
-        # slice lowering is effectively serial and was 78% of config-6
-        # device time).  The W-word span at any 128-word phase needs
-        # ceil((127 + W)/128) = 2 rows for W <= 129 (reads + margin up
-        # to ~2000 chars); the span is then extracted with one
-        # take_along_axis over the 256 gathered words.
+    branch = ref_chars_branch(nw)
+    if branch == "row128":
+        # genome-scale: gather 128-word rows of a [nw//128, 128] view.
+        # The W-word span at any 128-word phase needs
+        # ceil((127 + W)/128) rows (2 for W <= 129, i.e. reads + margin
+        # up to ~2000 chars); the span is then extracted with one
+        # take_along_axis over the gathered words.
         nr = nw // 128
         NRR = (126 + W) // 128 + 1
         r0 = w0 >> 7
@@ -171,22 +178,21 @@ def ref_chars_block(ref_words, n_text: int, start, L: int):
             wide, base + jnp.arange(W, dtype=jnp.int32), axis=-1)
         wsel = bitpos >> 4                                # in [0, W)
         NW = W
-    elif nw % 8 == 0:
+    elif branch in ("row8", "slice8"):
         nr = nw // 8
         NR = (W + 7) // 8 + 1       # rows covering W words at any offset
         r0 = w0 >> 3
         roff = jnp.arange(NR, dtype=jnp.int32)
         ridx = jnp.clip(r0[..., None] + roff, 0, nr - 1)
-        if nw <= _ROW8_MAX_WORDS:
-            # row-gather over a [nr, 8] view (fast lowering; scratch
-            # acceptable below the gate — see _ROW8_MAX_WORDS)
+        if branch == "row8":
+            # row-gather over a [nr, 8] view (below the gate — see
+            # _ROW8_MAX_WORDS)
             rows = ref_words.reshape(nr, 8)
             words = rows[ridx].reshape(w0.shape + (NR * 8,))
         else:
             # not 128-padded (legacy upload): gather 8-word SLICES from
-            # the flat array — zero scratch, but the slice lowering is
-            # ~100x slower per descriptor; FMIndex.to_device pads to 128
-            # words precisely so the branch above runs instead
+            # the flat array; FMIndex.to_device pads to 128 words, so
+            # the 128-word-row branch runs instead
             words = jax.lax.gather(
                 ref_words,
                 (ridx * 8)[..., None].astype(jnp.int32),
@@ -220,8 +226,8 @@ def rank2_from_rows(row, i, sym, zrow: int, zrow2: int):
     """rank2() on pre-gathered 44-column rows (see rank_from_rows)."""
     blk = i >> 7
     within = i & 127
-    # occ2[sym] via one-hot reduce (a per-lane dynamic column index
-    # would be another descriptor-bound gather)
+    # occ2[sym] via one-hot reduce (instead of a per-lane dynamic
+    # column index, which would be a second gather)
     onehot = (jnp.arange(16, dtype=jnp.int32)[None, :]
               == sym[:, None].astype(jnp.int32))
     base = jnp.where(onehot, row[:, 12:28].astype(jnp.int32), 0

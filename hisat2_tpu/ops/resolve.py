@@ -164,9 +164,8 @@ def resolve_consecutive(blocked, fchr, mark_words, mark_chk, sa_marked,
     top: int32 [...]; returns [..., P] joined offsets.  On full-SA
     indexes (off_rate == 0, sa_marked padded to a multiple of 8 by
     to_device) the P consecutive entries come from ceil(P/8)+1 gathered
-    8-entry ROWS — ~P/3 fewer gather descriptors than the flat
-    per-element gather, which is the descriptor-bound hot op of the
-    resolve stage.  Sampled-SA indexes fall back to the lock-step walk —
+    8-entry ROWS — ~P/3 fewer gathered indices than the flat
+    per-element gather, the hot op of the resolve stage.  Sampled-SA indexes fall back to the lock-step walk —
     sparse (live-compacted, chunk-walked) when a `live` [..., P] mask is
     given, dense otherwise."""
     j = jnp.arange(P, dtype=jnp.int32)

@@ -205,10 +205,10 @@ def partial_search(blocked, fchr, zrow: int, rows: int,
 
     # right-to-left read chars, precomputed once: step s consumes
     # read[len-1-s].  One full-width gather here replaces L small
-    # descriptor-bound gathers inside the scan.
+    # gathers inside the scan.
     if uniform:
         # all lens == L: the reverse-gather is a plain lane reverse,
-        # which XLA lowers to a contiguous copy (no descriptor gather)
+        # which XLA lowers to a contiguous copy (no gather)
         rrev = reads[:, ::-1]
     else:
         colL = jnp.arange(L, dtype=jnp.int32)[None, :]
@@ -350,8 +350,8 @@ def _finish_events(lens, H, min_hit_len, f_top, f_bot, f_rb, f_stopped,
         [jnp.zeros((B, 1), jnp.int32),
          jnp.cumsum(na_inc, axis=1)[:, :-1]], axis=1)
     # compact the first H recorded events per lane, in order — rank-based
-    # masked reductions instead of argsort+gather (the TPU sort/gather
-    # path costs ~10x more at [2B, L]; see ops/compact.py)
+    # masked reductions instead of argsort+gather (see ops/compact.py;
+    # which form pays on the H100 is ROADMAP C2)
     nrec = rec.sum(axis=1)
     rrank = jnp.cumsum(rec.astype(jnp.int32), axis=1) - 1
     hsel = rec[:, None, :] & (

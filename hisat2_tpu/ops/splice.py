@@ -1,4 +1,4 @@
-"""Batched junction discovery: splice joins + novel indels, TPU-native.
+"""Batched junction discovery: splice joins + novel indels, on device.
 
 The reference discovers splice junctions / indels one read at a time by
 sweeping a junction point between two anchored GenomeHits
@@ -212,9 +212,9 @@ def table_searchsorted(tab, q, lob=None, shift=None):
 
 # per-position PWM factors: table[kmer] = prod_j BACKGROUND[b_j]/PROB[b_j, j]
 # (exp of the summed log-odds) — evaluating the product directly with one
-# 4-way select per window position is pure VPU work, while the packed-kmer
-# table gather costs one descriptor per (lane, cand, x) cell and dominated
-# the spliced device step (6 gathers x ~12M cells = 550 ms/step on TPU)
+# 4-way select per window position is elementwise work, where the
+# packed-kmer table lookup would be one gather per (lane, cand, x) cell
+# (6 gathers x ~12M cells per spliced device step)
 _F_DONOR = (_BACKGROUND[:, None] / _DONOR_PROB).astype(np.float32)  # [4, 9]
 _F_ACC = (_BACKGROUND[:, None] / _ACC_PROB).astype(np.float32)      # [4,15]
 
@@ -285,8 +285,8 @@ def diag_chars(ref_words, n_text: int, starts, L: int, margin: int):
 
 def _take_x_i(v, bx, L1):
     """v[n, i, bx[n, i, j]] without a gather: one-hot select over x,
-    fused by XLA into the reduction (the broadcasted take_along_axis
-    costs one descriptor per (n, i, j) cell)."""
+    fused by XLA into the reduction (instead of a broadcasted
+    take_along_axis, one gathered index per (n, i, j) cell)."""
     sel = bx[:, :, :, None] == jnp.arange(L1, dtype=jnp.int32)
     return jnp.where(sel, v[:, :, None, :], 0).sum(axis=3, dtype=v.dtype)
 
@@ -633,7 +633,7 @@ def inject_known(ref_words, n_text: int, reads, quals, lens, rdids,
                  src_clip_l=None, src_clip_r=None, clip_pen=None,
                  snv_delta1=None, snv_delta2=None,
                  kd_lob=None, ka_lob=None, ss_shift=None):
-    """Known/temp splice-site directed candidates (the TPU-native equivalent
+    """Known/temp splice-site directed candidates (the batched equivalent
     of the reference's splice-site-driven re-alignment,
     spliced_aligner.h:296-407 getLeftSpliceSites / :409-500,1213-1338
     getRightSpliceSites): instead of recursive local search, each candidate
@@ -841,8 +841,8 @@ def inject_indels(ref_words, n_text: int, reads, quals, lens,
                   mm_pen, n_pen: int, minsc,
                   snv_delta1=None, snv_delta2=None, slots: int = 2):
     """Known ALT indel (ins/del) candidates by event injection — the
-    TPU-native counterpart of alignWithALTs_recur branching into compatible
-    indel ALTs (/root/reference/hi_aligner.h:2586-3377): for each candidate
+    batched counterpart of alignWithALTs_recur branching into compatible
+    indel ALTs (hi_aligner.h:2586-3377): for each candidate
     diagonal, nearby indel events determine the junction position and the
     complementary diagonal exactly; the variant costs nothing
     (snpID-tagged edits score 0, hi_aligner.h:3670-3686).
@@ -1118,7 +1118,7 @@ def second_sweep(ch, pen_spl, mm_raw, starts, valid, lens, minsc,
     symmetrically for the left) - so the sweep is the ordinary pair sweep
     with an offset, O(C * L) per lane.
 
-    This is the TPU-native shape of hybridSearch_recur's recursion depth 2
+    This is the batched shape of hybridSearch_recur's recursion depth 2
     (spliced_aligner.h:214+); the reference builds the same three-segment
     GenomeHits by recursive combineWith calls.
     """

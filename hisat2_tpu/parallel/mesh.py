@@ -1,8 +1,8 @@
 """Multi-chip execution: shard the read stream over a device mesh.
 
 The reference scales with pthreads pulling reads from a mutex-guarded cursor
-(/root/reference/hisat2.cpp:3533-3570, pat.h:163-241).  The TPU-native
-replacement is SPMD: the FM index is REPLICATED on every device (it is
+(hisat2.cpp:3533-3570, pat.h:163-241).  The replacement here is SPMD:
+the FM index is REPLICATED on every device (it is
 read-only, like the reference's shared index image — shmem.h:73-110), read
 batches are SHARDED over the 'dp' mesh axis, and per-batch summary counters
 merge with a psum instead of the reference's MERGE_METRICS mutex
@@ -13,9 +13,11 @@ deterministic, the property the reference approximates with its read-id
 throttling protocol (hisat2.cpp:3180-3203).
 
 A second mesh axis 'mp' is reserved for sharding the local-index hierarchy
-(HGFM windows) when per-chip HBM cannot hold the full index; with the
-packed layout a human SNP graph index fits one v5e chip, so 'mp' defaults
-to 1 — the same replicate-first stance the reference takes with shmem.
+(HGFM windows) when one device's memory cannot hold the full index; with
+the packed layout a human SNP graph index fits one 80 GB H100, so 'mp'
+defaults to 1 — the same replicate-first stance the reference takes with
+shmem.  GPUs of one host are joined all to all, so the mesh is a plain
+device list in jax.devices() order, one device per 'dp' slot.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@ the deterministic ordered merge.
 
 The reference is a single-node pthreads program; its closest analogs are
 the mutex-guarded read cursor (pat.h:163-241) and the ordered OutputQueue
-flush (outq.h:37-149).  The TPU-native replacement follows SURVEY §2.6:
+flush (outq.h:37-149).  The replacement here follows SURVEY §2.6:
 
   - the index is replicated per host (each host loads it independently),
   - the READ STREAM is the parallel axis: host r processes batches i with
@@ -19,9 +19,12 @@ flush (outq.h:37-149).  The TPU-native replacement follows SURVEY §2.6:
   - summary counters add across hosts (the reference's MERGE_METRICS).
 
 jax.distributed is initialized only when a coordinator address is given
-(required on real multi-host TPU pods so each process sees its local
-devices; unnecessary for the data path itself — there is no cross-host
-collective on the alignment path).
+(unnecessary for the data path itself — there is no cross-host collective
+on the alignment path).
+
+On one host with several GPUs, run one process per card and pin each to
+its own card before JAX starts (CUDA_VISIBLE_DEVICES=<rank>); otherwise
+every process opens card 0 and the second one runs out of memory there.
 
 Caveat (documented divergence): the temp splice-site DB is per-host, so
 novel-junction reuse across host boundaries matches `-p N` thread
@@ -39,7 +42,7 @@ import time
 
 
 def init_distributed(coordinator: str, world: int, rank: int):
-    """jax.distributed bring-up for real multi-host TPU pods."""
+    """jax.distributed bring-up across hosts (coordinator = host:port)."""
     import jax
     jax.distributed.initialize(coordinator_address=coordinator,
                                num_processes=world, process_id=rank)

@@ -1,11 +1,11 @@
 """2-bit DNA packing and popcount-based rank primitives.
 
 The reference implementation counts characters inside a cache-line "side" with
-a popcount LUT (`countBt2Side`, /root/reference/gfm.h:2557-2625).  The
-TPU-native equivalent keeps the same two-level idea — absolute counts sampled
-per block + a masked popcount within the block — but expresses the in-block
-count as vectorized uint32 bit-math over lanes so whole batches of rank
-queries run per VPU instruction.
+a popcount LUT (`countBt2Side`, gfm.h:2557-2625).  The equivalent here
+keeps the same two-level idea — absolute counts sampled per block + a masked
+popcount within the block — but expresses the in-block count as vectorized
+uint32 bit-math over lanes so whole batches of rank queries run per
+instruction.
 
 Packing convention (host + device agree):
   base index k lives in word k >> 4, bits [2*(k & 15), 2*(k & 15) + 1].

@@ -1,7 +1,7 @@
 // SA-IS suffix array construction (induced sorting), C ABI.
 //
-// TPU-native counterpart of the reference's index-build sorting core
-// (KarkkainenBlockwiseSA, /root/reference/blockwise_sa.h): the reference
+// Counterpart of the reference's index-build sorting core
+// (KarkkainenBlockwiseSA, blockwise_sa.h): the reference
 // block-sorts suffixes with a difference-cover sample to bound memory; here
 // a linear-time SA-IS pass builds the whole suffix array directly — the
 // index builder (hisat2_tpu/index/builder.py) consumes it via ctypes and

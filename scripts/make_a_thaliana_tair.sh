@@ -1,6 +1,6 @@
 #!/bin/sh
-# a_thaliana_tair: download + build recipe (TPU-native counterpart of
-# /root/reference/scripts/make_a_thaliana_tair.sh — same data sources, our builder).
+# a_thaliana_tair: download + build recipe (counterpart of
+# HISAT2's scripts/make_a_thaliana_tair.sh — same data sources, our builder).
 # Requires network access; run in an empty working directory.
 set -e
 fetch() {

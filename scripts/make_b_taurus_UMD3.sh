@@ -1,6 +1,6 @@
 #!/bin/sh
-# b_taurus_UMD3: download + build recipe (TPU-native counterpart of
-# /root/reference/scripts/make_b_taurus_UMD3.sh — same data sources, our builder).
+# b_taurus_UMD3: download + build recipe (counterpart of
+# HISAT2's scripts/make_b_taurus_UMD3.sh — same data sources, our builder).
 # Requires network access; run in an empty working directory.
 set -e
 fetch() {

@@ -1,6 +1,6 @@
 #!/bin/sh
-# bdgp6: download + build recipe (TPU-native counterpart of
-# /root/reference/scripts/make_bdgp6.sh — same data sources, our builder).
+# bdgp6: download + build recipe (counterpart of
+# HISAT2's scripts/make_bdgp6.sh — same data sources, our builder).
 # Requires network access; run in an empty working directory.
 set -e
 fetch() {

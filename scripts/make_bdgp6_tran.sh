@@ -1,6 +1,6 @@
 #!/bin/sh
-# bdgp6_tran: download + build recipe (TPU-native counterpart of
-# /root/reference/scripts/make_bdgp6_tran.sh — same data sources, our builder).
+# bdgp6_tran: download + build recipe (counterpart of
+# HISAT2's scripts/make_bdgp6_tran.sh — same data sources, our builder).
 # Requires network access; run in an empty working directory.
 set -e
 fetch() {

@@ -1,6 +1,6 @@
 #!/bin/sh
-# canFam2: download + build recipe (TPU-native counterpart of
-# /root/reference/scripts/make_canFam2.sh — same data sources, our builder).
+# canFam2: download + build recipe (counterpart of
+# HISAT2's scripts/make_canFam2.sh — same data sources, our builder).
 # Requires network access; run in an empty working directory.
 set -e
 fetch() {

@@ -1,6 +1,6 @@
 #!/bin/sh
-# ce10: download + build recipe (TPU-native counterpart of
-# /root/reference/scripts/make_ce10.sh — same data sources, our builder).
+# ce10: download + build recipe (counterpart of
+# HISAT2's scripts/make_ce10.sh — same data sources, our builder).
 # Requires network access; run in an empty working directory.
 set -e
 fetch() {

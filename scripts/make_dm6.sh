@@ -1,6 +1,6 @@
 #!/bin/sh
-# dm6: download + build recipe (TPU-native counterpart of
-# /root/reference/scripts/make_dm6.sh — same data sources, our builder).
+# dm6: download + build recipe (counterpart of
+# HISAT2's scripts/make_dm6.sh — same data sources, our builder).
 # Requires network access; run in an empty working directory.
 set -e
 fetch() {

@@ -1,6 +1,6 @@
 #!/bin/sh
-# grch37: download + build recipe (TPU-native counterpart of
-# /root/reference/scripts/make_grch37.sh — same data sources, our builder).
+# grch37: download + build recipe (counterpart of
+# HISAT2's scripts/make_grch37.sh — same data sources, our builder).
 # Requires network access; run in an empty working directory.
 set -e
 fetch() {

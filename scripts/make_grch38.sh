@@ -1,6 +1,6 @@
 #!/bin/sh
 # Downloads GRCh38 (Ensembl release 84) and builds a linear index
-# (TPU-native equivalent of /root/reference/scripts/make_grch38.sh).
+# (counterpart of HISAT2's scripts/make_grch38.sh).
 ENSEMBL_RELEASE=84
 BASE=ftp://ftp.ensembl.org/pub/release-${ENSEMBL_RELEASE}/fasta/homo_sapiens/dna
 F=genome.fa

@@ -1,6 +1,6 @@
 #!/bin/sh
 # GRCh38 + dbSNP (common) + Ensembl GTF -> SNP/transcript graph index
-# (TPU-native equivalent of /root/reference/scripts/make_grch38_snp_tran.sh).
+# (counterpart of HISAT2's scripts/make_grch38_snp_tran.sh).
 ENSEMBL_RELEASE=84
 BASE=ftp://ftp.ensembl.org/pub/release-${ENSEMBL_RELEASE}
 UCSC=http://hgdownload.soe.ucsc.edu/goldenPath/hg38/database

@@ -1,6 +1,6 @@
 #!/bin/sh
-# grch38_snp_tran_ercc: download + build recipe (TPU-native counterpart of
-# /root/reference/scripts/make_grch38_snp_tran_ercc.sh — same data sources, our builder).
+# grch38_snp_tran_ercc: download + build recipe (counterpart of
+# HISAT2's scripts/make_grch38_snp_tran_ercc.sh — same data sources, our builder).
 # Requires network access; run in an empty working directory.
 set -e
 fetch() {

@@ -1,6 +1,6 @@
 #!/bin/sh
-# grcm38_tran: download + build recipe (TPU-native counterpart of
-# /root/reference/scripts/make_grcm38_tran.sh — same data sources, our builder).
+# grcm38_tran: download + build recipe (counterpart of
+# HISAT2's scripts/make_grcm38_tran.sh — same data sources, our builder).
 # Requires network access; run in an empty working directory.
 set -e
 fetch() {

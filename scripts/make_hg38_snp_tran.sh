@@ -1,6 +1,6 @@
 #!/bin/sh
-# hg38_snp_tran: download + build recipe (TPU-native counterpart of
-# /root/reference/scripts/make_hg38_snp_tran.sh — same data sources, our builder).
+# hg38_snp_tran: download + build recipe (counterpart of
+# HISAT2's scripts/make_hg38_snp_tran.sh — same data sources, our builder).
 # Requires network access; run in an empty working directory.
 set -e
 fetch() {

@@ -1,6 +1,6 @@
 #!/bin/sh
-# r64: download + build recipe (TPU-native counterpart of
-# /root/reference/scripts/make_r64.sh — same data sources, our builder).
+# r64: download + build recipe (counterpart of
+# HISAT2's scripts/make_r64.sh — same data sources, our builder).
 # Requires network access; run in an empty working directory.
 set -e
 fetch() {

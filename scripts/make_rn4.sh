@@ -1,6 +1,6 @@
 #!/bin/sh
-# rn4: download + build recipe (TPU-native counterpart of
-# /root/reference/scripts/make_rn4.sh — same data sources, our builder).
+# rn4: download + build recipe (counterpart of
+# HISAT2's scripts/make_rn4.sh — same data sources, our builder).
 # Requires network access; run in an empty working directory.
 set -e
 fetch() {

@@ -1,6 +1,6 @@
 #!/bin/sh
-# rnor6_tran: download + build recipe (TPU-native counterpart of
-# /root/reference/scripts/make_rnor6_tran.sh — same data sources, our builder).
+# rnor6_tran: download + build recipe (counterpart of
+# HISAT2's scripts/make_rnor6_tran.sh — same data sources, our builder).
 # Requires network access; run in an empty working directory.
 set -e
 fetch() {

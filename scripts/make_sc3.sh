@@ -1,6 +1,6 @@
 #!/bin/sh
-# sc3: download + build recipe (TPU-native counterpart of
-# /root/reference/scripts/make_sc3.sh — same data sources, our builder).
+# sc3: download + build recipe (counterpart of
+# HISAT2's scripts/make_sc3.sh — same data sources, our builder).
 # Requires network access; run in an empty working directory.
 set -e
 fetch() {

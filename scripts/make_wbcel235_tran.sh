@@ -1,6 +1,6 @@
 #!/bin/sh
-# wbcel235_tran: download + build recipe (TPU-native counterpart of
-# /root/reference/scripts/make_wbcel235_tran.sh — same data sources, our builder).
+# wbcel235_tran: download + build recipe (counterpart of
+# HISAT2's scripts/make_wbcel235_tran.sh — same data sources, our builder).
 # Requires network access; run in an empty working directory.
 set -e
 fetch() {

@@ -1,22 +1,30 @@
 #!/usr/bin/env python3
-"""Regenerate the /tmp parity corpora this repo is byte-verified against.
+"""Regenerate the parity corpora this repo is byte-verified against.
 
-The corpora live in /tmp (ephemeral).  This script rebuilds every
-fixture genome/read set, builds both our indexes and the reference's,
-and runs the reference oracle to produce the ref_*.sam ground truths.
-Requires the oracle binaries (see .claude/skills/verify/SKILL.md).
+This script rebuilds every fixture genome/read set, builds both our
+indexes and the reference's, and runs the reference oracle (HISAT2
+v2.1.0's hisat2-align-s / hisat2-build-s) to produce the ref_*.sam ground
+truths.  It needs two things from outside the repo, named by environment
+variables:
 
-Usage:  python tests/make_corpora.py [--only spltest,dnaparity,...]
+  HISAT2_BIN  directory holding the oracle binaries built from the HISAT2
+              source (make hisat2-align-s hisat2-build-s hisat2-inspect-s)
+  HISAT2_SRC  the HISAT2 source checkout (its example/ corpus: the 1 Mbp
+              chr22 slice, its reads and its .snp file)
 
-Corpora produced (matching PARITY.md):
-  /tmp/dnaparity  example chr22 slice: linear + SNP-graph indexes,
-                  1500-read variant fuzz, known-indel reads, edge reads
-  /tmp/spltest    planted-intron RNA genome: spliced corpus, _tran index,
-                  known-splice-site runs, simulated RNA pairs
-  /tmp/mjtest     two-intron (multi-junction) corpus
-  /tmp/petest     mate-rescue paired corpus (repeat locus)
-  /tmp/rngtest    duplicated-locus multimap corpora (tie-break RNG)
-  /tmp/shardtest  two-chromosome genome for sharded-index equivalence
+Usage:  HISAT2_BIN=... HISAT2_SRC=... \
+        python tests/make_corpora.py [--only spltest,dnaparity,...]
+
+Corpora produced (matching PARITY.md), each in a directory under
+$CORPORA_DIR (default: ./corpora):
+  dnaparity  example chr22 slice: linear + SNP-graph indexes,
+             1500-read variant fuzz, known-indel reads, edge reads
+  spltest    planted-intron RNA genome: spliced corpus, _tran index,
+             known-splice-site runs, simulated RNA pairs
+  mjtest     two-intron (multi-junction) corpus
+  petest     mate-rescue paired corpus (repeat locus)
+  rngtest    duplicated-locus multimap corpora (tie-break RNG)
+  shardtest  two-chromosome genome for sharded-index equivalence
 """
 
 from __future__ import annotations
@@ -27,8 +35,10 @@ import sys
 
 import numpy as np
 
-REF = "/tmp/ref_build"
-EX = "/root/reference/example"
+REF = os.environ.get("HISAT2_BIN", "")
+EX = os.path.join(os.environ.get("HISAT2_SRC", ""), "example")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OUT = os.environ.get("CORPORA_DIR", "corpora")
 ACGT = np.array(list("ACGT"))
 
 
@@ -57,20 +67,20 @@ def oracle_align(d, idx, args, out):
        f"2>/dev/null")
 
 
-def tpu_build(d, fa, base, extra=""):
-    sh(f"cd {d} && PYTHONPATH=/root/repo JAX_PLATFORMS=cpu "
+def our_build(d, fa, base, extra=""):
+    sh(f"cd {d} && PYTHONPATH={REPO} JAX_PLATFORMS=cpu "
        f"python -m hisat2_tpu build {fa} {base} {extra} >/dev/null 2>&1")
 
 
 def mk_dnaparity():
-    d = "/tmp/dnaparity"
+    d = os.path.join(OUT, "dnaparity")
     os.makedirs(d, exist_ok=True)
     sh(f"cp {EX}/reference/22_20-21M.fa {d}/22_20-21M.fa")
     oracle_build(f"{d}/22_20-21M.fa", "lin")
     sh(f"cd {d} && {REF}/hisat2-build-s --snp {EX}/reference/22_20-21M.snp "
        f"22_20-21M.fa snp >/dev/null 2>&1")
-    tpu_build(d, "22_20-21M.fa", "tpu_lin")
-    tpu_build(d, "22_20-21M.fa", "tpu_snp",
+    our_build(d, "22_20-21M.fa", "our_lin")
+    our_build(d, "22_20-21M.fa", "our_snp",
               f"--snp {EX}/reference/22_20-21M.snp")
     # variant fuzz: 1500 reads with SNVs/dels/ins + errors, both strands
     gs = [l.strip() for l in open(f"{d}/22_20-21M.fa") if l[0] != ">"]
@@ -124,7 +134,7 @@ def mk_dnaparity():
 
 
 def mk_spltest():
-    d = "/tmp/spltest"
+    d = os.path.join(OUT, "spltest")
     os.makedirs(d, exist_ok=True)
     rng = np.random.default_rng(7)
     n = 200000
@@ -151,7 +161,7 @@ def mk_spltest():
                     f.write(f">spl_{s0}_{ln}_a{a}_rc\n"
                             + "".join(ACGT[rc]) + "\n")
     oracle_build(f"{d}/g.fa", "spl")
-    tpu_build(d, "g.fa", "tpu_idx")
+    our_build(d, "g.fa", "our_idx")
     oracle_align(d, "spl", "-f -U reads.fa", "ref.sam")
     # known splice sites + transcript index
     with open(f"{d}/known.ss", "w") as f:
@@ -159,7 +169,7 @@ def mk_spltest():
             f.write(f"chrT\t{s0 - 1}\t{s0 + ln}\t+\n")
     sh(f"cd {d} && {REF}/hisat2-build-s --ss known.ss g.fa tran "
        f">/dev/null 2>&1")
-    tpu_build(d, "g.fa", "tpu_tran", "--ss known.ss")
+    our_build(d, "g.fa", "our_tran", "--ss known.ss")
     oracle_align(d, "tran", "-f -U reads.fa", "ref_tran.sam")
     oracle_align(d, "spl", "-f -U reads.fa --known-splicesite-infile "
                  "known.ss", "ref_ksi.sam")
@@ -172,7 +182,7 @@ def mk_spltest():
             f.write(f"chrT\tsim\texon\t{lo + 1}\t{s0}\t.\t+\t.\t{attr}\n")
             f.write(f"chrT\tsim\texon\t{s0 + ln + 1}\t{hi}\t.\t+\t.\t"
                     f"{attr}\n")
-    sh(f"cd {d} && PYTHONPATH=/root/repo JAX_PLATFORMS=cpu "
+    sh(f"cd {d} && PYTHONPATH={REPO} JAX_PLATFORMS=cpu "
        f"python -m hisat2_tpu simulate-reads g.fa sim -n 1500 -r 100 "
        f"--gtf g.gtf >/dev/null 2>&1")
     oracle_align(d, "spl", "-f -1 sim_1.fa -2 sim_2.fa", "ref_rna_pe.sam")
@@ -185,7 +195,7 @@ def mk_rnafuzz():
     reads with anchors 8..92 (some with an extra mismatch), plain
     mismatch reads, both strands — oracle-aligned in default spliced
     mode."""
-    d = "/tmp/rnafuzz"
+    d = os.path.join(OUT, "rnafuzz")
     os.makedirs(d, exist_ok=True)
     rng = np.random.default_rng(20260820)
     n = 600000
@@ -242,12 +252,12 @@ def mk_rnafuzz():
                 tag += "_rc"
             f.write(f">rf{i}_{tag}\n" + "".join(ACGT[read]) + "\n")
     oracle_build(f"{d}/g.fa", "rf")
-    tpu_build(d, "g.fa", "tpu")
+    our_build(d, "g.fa", "ours")
     oracle_align(d, "rf", "-f -U fuzz.fa", "ref.sam")
 
 
 def mk_mjtest():
-    d = "/tmp/mjtest"
+    d = os.path.join(OUT, "mjtest")
     os.makedirs(d, exist_ok=True)
     rng = np.random.default_rng(21)
     g = rng.integers(0, 4, 150000).astype(np.uint8)
@@ -262,7 +272,7 @@ def mk_mjtest():
                                    g[41040:41040 + 60 - a]])
             f.write(f">mj_l{a}\n" + "".join(ACGT[read]) + "\n")
     oracle_build(f"{d}/g.fa", "mj")
-    tpu_build(d, "g.fa", "tpu")
+    our_build(d, "g.fa", "ours")
     oracle_align(d, "mj", "-f -U r.fa", "ref.sam")
 
 
@@ -270,7 +280,7 @@ def mk_petest():
     # mate-RESCUE corpus: mate2 sits in a block repeated 30x genome-wide
     # (global search gives up: every anchor too wide), so only the
     # window-anchored rescue (alignMate) can place it
-    d = "/tmp/petest"
+    d = os.path.join(OUT, "petest")
     os.makedirs(d, exist_ok=True)
     rng = np.random.default_rng(17)
     g = rng.integers(0, 4, 120000).astype(np.uint8)
@@ -289,12 +299,12 @@ def mk_petest():
             f1.write(f">p{i}\n" + "".join(ACGT[m1]) + "\n")
             f2.write(f">p{i}\n" + "".join(ACGT[m2]) + "\n")
     oracle_build(f"{d}/g.fa", "rep")
-    tpu_build(d, "g.fa", "rep_tpu")
+    our_build(d, "g.fa", "rep_ours")
     oracle_align(d, "rep", "-f -1 p1.fa -2 p2.fa", "ref.sam")
 
 
 def mk_rngtest():
-    d = "/tmp/rngtest"
+    d = os.path.join(OUT, "rngtest")
     os.makedirs(d, exist_ok=True)
     rng = np.random.default_rng(99)
     g = rng.integers(0, 4, 300000).astype(np.uint8)
@@ -305,7 +315,7 @@ def mk_rngtest():
         for i, o in enumerate(offs):
             f.write(f">mm{i}\n" + "".join(ACGT[g[o:o + 100]]) + "\n")
     oracle_build(f"{d}/g.fa", "mm")
-    tpu_build(d, "g.fa", "tpu_mm")
+    our_build(d, "g.fa", "our_mm")
     oracle_align(d, "mm", "--no-spliced-alignment -f -U r.fa", "ref.sam")
     # 3-copy variant
     g3 = rng.integers(0, 4, 400000).astype(np.uint8)
@@ -316,18 +326,18 @@ def mk_rngtest():
         for i, o in enumerate(rng.integers(50000, 52900, 150)):
             f.write(f">t{i}\n" + "".join(ACGT[g3[o:o + 100]]) + "\n")
     oracle_build(f"{d}/g3.fa", "mm3")
-    tpu_build(d, "g3.fa", "tpu_mm3")
+    our_build(d, "g3.fa", "our_mm3")
     oracle_align(d, "mm3", "--no-spliced-alignment -f -U r3.fa", "ref3.sam")
 
 
 def mk_shardtest():
-    d = "/tmp/shardtest"
+    d = os.path.join(OUT, "shardtest")
     os.makedirs(d, exist_ok=True)
     rng = np.random.default_rng(31)
     write_fa(f"{d}/g.fa", [("chrA", rng.integers(0, 4, 400000)),
                            ("chrB", rng.integers(0, 4, 400000))])
-    tpu_build(d, "g.fa", "single")
-    tpu_build(d, "g.fa", "sharded", "--shard-bp 450000")
+    our_build(d, "g.fa", "single")
+    our_build(d, "g.fa", "sharded", "--shard-bp 450000")
 
 
 ALL = {"dnaparity": mk_dnaparity, "rnafuzz": mk_rnafuzz,
@@ -341,8 +351,8 @@ def main():
     if len(sys.argv) > 2 and sys.argv[1] == "--only":
         only = set(sys.argv[2].split(","))
     if not os.path.exists(f"{REF}/hisat2-align-s"):
-        print("build the oracle first (see .claude/skills/verify/SKILL.md)",
-              file=sys.stderr)
+        print("set HISAT2_BIN to the oracle binaries' directory (see the "
+              "module docstring)", file=sys.stderr)
         return 1
     for name, fn in ALL.items():
         if only and name not in only:

@@ -45,8 +45,6 @@ def test_read_alts():
 
 def test_convert_and_align(tmp_path):
     """Conversion must reproduce the same alignments as a native build."""
-    import jax
-    jax.config.update("jax_platforms", "cpu")
     from hisat2_tpu.align.pipeline import TPUAligner
     from hisat2_tpu.index import ht2
     from hisat2_tpu.index.builder import build_fm_index

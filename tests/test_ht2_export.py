@@ -123,9 +123,9 @@ def test_export_byte_equal_vs_reference(tmp_path, genome):
     base_ref = str(tmp_path / "ref")
     subprocess.run([REFBUILD, str(fa), base_ref], check=True,
                    capture_output=True)
-    base_tpu = str(tmp_path / "tpu")
-    export_ht2(genome, base_tpu)
+    base_ours = str(tmp_path / "ours")
+    export_ht2(genome, base_ours)
     for i in range(1, 9):
-        ra = open(f"{base_tpu}.{i}.ht2", "rb").read()
+        ra = open(f"{base_ours}.{i}.ht2", "rb").read()
         rb = open(f"{base_ref}.{i}.ht2", "rb").read()
         assert ra == rb, f".{i}.ht2 differs from hisat2-build-s output"

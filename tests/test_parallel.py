@@ -22,10 +22,9 @@ def test_entry_compiles():
 
 def test_sharded_matches_single_device(small_index):
     """The sharded step must produce identical candidates to single-device."""
-    import jax
-
     from hisat2_tpu.align.pipeline import TPUAligner
     from hisat2_tpu.parallel import mesh as pmesh
+    from hisat2_tpu.utils import devcheck
 
     idx, seq = small_index
     al = TPUAligner(idx, spliced=True)
@@ -37,53 +36,11 @@ def test_sharded_matches_single_device(small_index):
     lens = np.full(B, L, np.int32)
     minsc = np.full(B, -20, np.int32)
     rdids = np.arange(B, dtype=np.int32)
-    ss = al.splice_db.device_tables()
-
-    single = al._fetch_out(
-        al._device_step(al.dev, al.params, reads, quals, lens, minsc,
-                        rdids, ss))
-
     m = pmesh.make_mesh(n_dp=8)
-    step = pmesh.sharded_align_step(al, m)
-    d = pmesh.replicate(m, al.dev)
-    params = pmesh.replicate(m, al.params)
-    ss_r = pmesh.replicate(m, ss)
-    r, q, l, ms, ri = pmesh.shard_batch(m, reads, quals, lens, minsc, rdids)
-    sharded, n_cand = step(d, params, r, q, l, ms, ri, ss_r)
-    jax.block_until_ready(n_cand)
-    # the packed single-device path uses the spill D2H layout: slots are
-    # reordered valid-first and invalid-slot payloads are don't-care, so
-    # per-slot u_* fields compare as per-lane SETS over the valid slots
-    sv = np.asarray(single["u_flags"]) & 1
-    hv = np.asarray(sharded["u_flags"]) & 1
-    np.testing.assert_array_equal(sv.sum(axis=1), hv.sum(axis=1),
-                                  err_msg="valid-count")
-    slot_keys = [k for k in single
-                 if k.startswith("u_") and single[k].ndim == 2
-                 and single[k].shape[1] == sv.shape[1]
-                 and k != "u_alt"]
-    for lane in range(sv.shape[0]):
-        a = {tuple(int(np.asarray(single[k])[lane, j]) for k in slot_keys)
-             for j in np.flatnonzero(sv[lane])}
-        b = {tuple(int(np.asarray(sharded[k])[lane, j]) for k in slot_keys)
-             for j in np.flatnonzero(hv[lane])}
-        assert a == b, f"lane {lane} valid-slot sets differ"
-    # per-lane (non-slot) fields still compare exactly
-    for k in single:
-        if k in slot_keys or k == "u_alt" or k.startswith("sp_"):
-            continue
-        sh = np.asarray(sharded[k])
-        sg = np.asarray(single[k])
-        if sh.shape != sg.shape:
-            continue
-        if sh.dtype.kind in "iu":
-            sh2 = np.clip(sh, -32768, 32767)
-            sh2 = np.where(sh2 == -32768, np.int32(-(2 ** 30)), sh2)
-            if np.array_equal(sg, sh) or np.array_equal(sg, sh2) \
-                    or np.array_equal(sg, np.clip(sh, -128, 127)):
-                continue
-        np.testing.assert_array_equal(sg, sh, err_msg=k)
-    assert int(np.asarray(n_cand)) == int(sv.sum())
+    assert len({d.id for d in m.devices.flat}) == 8
+    bad = devcheck.sharded_step_mismatches(al, reads, quals, lens, minsc,
+                                           rdids, m)
+    assert not bad, f"sharded step differs from single-device: {bad}"
 
 
 def test_sharded_variants_match_single(tmp_path):

@@ -66,7 +66,7 @@ def mm3_idx(tmp_path_factory):
     ("ms", ["-k", "2", "--max-seeds", "30"]),
 ])
 def test_multimap_report_modes(mm3_idx, name, extra):
-    out = str(mm3_idx / f"tpu_{name}.sam")
+    out = str(mm3_idx / f"ours_{name}.sam")
     _run_cli(["align", "--no-spliced-alignment", "-f", "-x", "idx",
               "-U", f"{DATA}/mm3_reads.fa", "-S", out] + extra,
              cwd=str(mm3_idx))
