@@ -17,9 +17,8 @@ JAX_PLATFORMS=cpu, which never open a card.  Phases:
       extract-splice-sites, build --snp --ss, simulate-reads (paired
       2x100 RNA and DNA) and paired align with known/novel splice sites
   (d) the first 1,000 pairs of (c) aligned again on the CPU in a child
-      process: DNA SAM byte-equal; RNA differences are printed and allowed
-      only on reads with a spliced record (float32 splice-probability
-      math, ops/splice.py)
+      process: DNA and RNA SAM byte-equal (every differing RNA record is
+      printed before the phase fails)
   (e) (c) scored against the simulated truth (calculate_read_cost.py)
   (f) component checks at real widths (hisat2_tpu/utils/devcheck.py):
       rescue counts, every ref_chars_block branch, lax.top_k tie order
@@ -48,6 +47,9 @@ T0 = time.time()
 RNA_LIMITS = dict(aligned=0.95, correct=0.95)
 DNA_LIMITS = dict(aligned=0.95, correct=0.95)
 SUBSET_PAIRS = 1000
+PAIRS = 3000            # pairs per read type in (c)
+FLY_SCALE = 1.0         # dm6's full lengths: the 128-word-row gather runs
+FOUR_SCALE = 0.05       # --four checks equality, not genome-scale paths
 
 
 class SmokeFail(Exception):
@@ -147,7 +149,7 @@ def fly_paths(work):
                 idx=f"{d}/idx", rna=f"{d}/sim_rna", dna=f"{d}/sim_dna")
 
 
-def prep(work, scale, pairs, seed):
+def prep(work, scale, seed):
     """Child: fly-shape inputs, index and simulated reads, all through the
     CLI entry points.  Prints a JSON line of host wall times."""
     from hisat2_tpu.tools.flyshape import write_fly_shape
@@ -166,9 +168,9 @@ def prep(work, scale, pairs, seed):
     t["build_s"] = time.time() - t0
     t0 = time.time()
     cli(["simulate-reads", p["fa"], p["rna"], "--gtf", p["gtf"],
-         "--snp", p["snp"], "-n", str(pairs), "--random-seed", str(seed)])
+         "--snp", p["snp"], "-n", str(PAIRS), "--random-seed", str(seed)])
     cli(["simulate-reads", p["fa"], p["dna"], "-d", "--snp", p["snp"],
-         "-n", str(pairs), "--random-seed", str(seed + 1)])
+         "-n", str(PAIRS), "--random-seed", str(seed + 1)])
     t["simulate_s"] = time.time() - t0
     with open(p["ss"]) as f:
         n_ss = sum(1 for _ in f)
@@ -269,37 +271,24 @@ def compare_subset(p):
         g = sam_body(f"{p['dir']}/gpu_{kind}_sub.sam")
         c = sam_body(f"{p['dir']}/cpu_{kind}.sam")
         check(len(g) > 0, f"empty GPU {kind} SAM")
-        if kind == "dna":
-            nd = sum(a != b for a, b in zip(g, c)) + abs(len(g) - len(c))
-            log(f"(d) DNA {len(g)} GPU / {len(c)} CPU records, {nd} differ")
-            check(nd == 0, "DNA SAM differs between GPU and CPU")
-            continue
         by_g, by_c = collections.defaultdict(list), \
             collections.defaultdict(list)
         for line in g:
             by_g[line.split("\t", 1)[0]].append(line)
         for line in c:
             by_c[line.split("\t", 1)[0]].append(line)
-        names = sorted(set(by_g) | set(by_c))
-        diff = [n for n in names if by_g[n] != by_c[n]]
-        n_rec = 0
-        unexplained = []
+        diff = [n for n in sorted(set(by_g) | set(by_c))
+                if by_g[n] != by_c[n]]
         for n in diff:
-            recs = by_g[n] + by_c[n]
-            n_rec += sum(1 for r in by_g[n] if r not in by_c[n])
-            for r in by_g[n]:
-                if r not in by_c[n]:
-                    log(f"(d) RNA GPU-only: {r.rstrip()}")
-            for r in by_c[n]:
-                if r not in by_g[n]:
-                    log(f"(d) RNA CPU-only: {r.rstrip()}")
-            if not any("N" in r.split("\t")[5] for r in recs):
-                unexplained.append(n)
-        log(f"(d) RNA {len(g)} GPU / {len(c)} CPU records: {n_rec} GPU "
-            f"records differ over {len(diff)} reads; {len(unexplained)} "
-            f"of those reads have no spliced record")
-        check(not unexplained, "RNA GPU/CPU difference on unspliced reads: "
-              + ", ".join(unexplained[:10]))
+            for side, mine, other in (("GPU", by_g, by_c),
+                                      ("CPU", by_c, by_g)):
+                for r in mine[n]:
+                    if r not in other[n]:
+                        log(f"(d) {kind.upper()} {side}-only: {r.rstrip()}")
+        nd = sum(a != b for a, b in zip(g, c)) + abs(len(g) - len(c))
+        log(f"(d) {kind.upper()} {len(g)} GPU / {len(c)} CPU records: {nd} "
+            f"differ, over {len(diff)} reads")
+        check(nd == 0, f"{kind.upper()} SAM differs between GPU and CPU")
 
 
 def phase_e(p):
@@ -379,13 +368,13 @@ def run_one(a):
     procs = []
     try:
         prep_log = f"{work}/prep.log"
-        procs.append(child([__file__, "--prep", work, "--scale",
-                            str(a.scale), "--pairs", str(a.pairs)],
+        procs.append(child([__file__, "--prep", work],
                            {"JAX_PLATFORMS": "cpu"}, prep_log))
         t0 = time.time()
         phase_b(work, clock)
         log(f"(b) oracle corpora byte-equal ({time.time() - t0:.1f}s)")
-        n_text = sum(max(int(ln * a.scale), 20_000) for _, ln in DM6_CHROMS)
+        n_text = sum(max(int(ln * FLY_SCALE), 20_000)
+                     for _, ln in DM6_CHROMS)
         t0 = time.time()
         phase_f(dev, n_text)
         log(f"(f) component checks exact ({time.time() - t0:.1f}s)")
@@ -393,7 +382,7 @@ def run_one(a):
         info = json.loads(out.strip().splitlines()[-1])
         log(f"(c) fly-shape genome: {info['bp']} bp, {info['genes']} genes,"
             f" {info['splice_sites']} splice sites, {info['variants']} "
-            f"variants; {a.pairs} pairs per read type")
+            f"variants; {PAIRS} pairs per read type")
         for k in ("generate_s", "extract_ss_s", "build_s", "simulate_s"):
             log(f"(c) host {k[:-2]} wall {info[k]:.1f}s")
         cpu_log = f"{work}/cpu_align.log"
@@ -407,7 +396,7 @@ def run_one(a):
             cli(align_args(p, kind, f"{p['dir']}/{out}.sam", upto=upto))
             wall = time.time() - t0
             comp = clock.total - c0
-            n = upto or a.pairs
+            n = upto or PAIRS
             log(f"(c) {kind.upper()} align {n} pairs ({out}): wall "
                 f"{wall:.1f}s")
             log(f"(c) {kind.upper()} {out} XLA compile {comp:.1f}s")
@@ -442,8 +431,7 @@ def run_four(a):
         # host-only prep first: no process may open a card before the
         # four pinned children have theirs
         prep_log = f"{work}/prep.log"
-        procs.append(child([__file__, "--prep", work, "--scale",
-                            str(a.scale), "--pairs", str(a.pairs)],
+        procs.append(child([__file__, "--prep", work, "--four"],
                            {"JAX_PLATFORMS": "cpu"}, prep_log))
         info = json.loads(wait_child(procs[0], "prep", prep_log, 1500)
                           .strip().splitlines()[-1])
@@ -551,18 +539,13 @@ def main(argv=None):
     ap.add_argument("--four", action="store_true",
                     help="run only the multi-device paths on four GPUs")
     ap.add_argument("--workdir", default=os.path.join(REPO, ".smoke_work"))
-    ap.add_argument("--scale", type=float, default=None,
-                    help="genome scale (default 1.0; 0.05 with --four)")
-    ap.add_argument("--pairs", type=int, default=3000)
     ap.add_argument("--keep", action="store_true",
                     help="keep the work directory")
     ap.add_argument("--prep", help=argparse.SUPPRESS)
     ap.add_argument("--cpu-align", help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
-    if a.scale is None:
-        a.scale = 0.05 if a.four else 1.0
     if a.prep:
-        prep(a.prep, a.scale, a.pairs, seed=7)
+        prep(a.prep, FOUR_SCALE if a.four else FLY_SCALE, seed=7)
         return 0
     if a.cpu_align:
         cpu_align(a.cpu_align)

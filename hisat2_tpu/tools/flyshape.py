@@ -16,6 +16,12 @@ stand-in with the same shape:
 `scale` shrinks every sequence, the gene count and the variant count by
 the same factor (tests use it; the shapes stay the same).
 
+Limit: the bases are uniform random, with no repeat families or
+duplicated loci (dm6 is ~20% transposons), so nearly every read has one
+locus.  Multi-hit reporting, the resolve loop and rescue inside repeats
+barely run on this genome; a cell that should exercise them needs seeded
+repeat families (copies a few percent divergent) planted first.
+
   python -m hisat2_tpu.tools.flyshape OUTDIR [--scale S] [--seed N]
 """
 

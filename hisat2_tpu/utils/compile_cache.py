@@ -5,7 +5,9 @@ enable_compile_cache() before its first compilation, so all of them share
 one cache that an operator can place from outside:
 
   - JAX_COMPILATION_CACHE_DIR set: JAX reads it itself; nothing is set here;
-  - otherwise: <checkout>/.jax_cache (listed in .gitignore).
+  - otherwise: <checkout>/.jax_cache (listed in .gitignore), and compiles
+    of 0.5 s and more are cached (JAX's own floor is 1 s; the aligner's
+    many small per-shape steps fall between the two).
 """
 
 from __future__ import annotations
@@ -24,4 +26,5 @@ def enable_compile_cache() -> str:
     import jax
     path = os.path.join(CHECKOUT, ".jax_cache")
     jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
     return path

@@ -38,6 +38,18 @@ def gpu_device():
     return devs[0]
 
 
+@pytest.fixture
+def cpu_backend():
+    """The first CPU device, for checks that compare a GPU with the CPU;
+    skips the test when JAX_PLATFORMS leaves the CPU backend out."""
+    import jax
+    try:
+        return jax.devices("cpu")[0]
+    except RuntimeError as e:
+        pytest.skip(f"needs the CPU backend beside the GPU "
+                    f"(JAX_PLATFORMS=cuda,cpu): {e}")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(42)

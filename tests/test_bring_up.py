@@ -30,6 +30,7 @@ def test_compile_cache_default_is_checkout(monkeypatch):
     want = os.path.join(CHECKOUT, ".jax_cache")
     assert enable_compile_cache() == want
     assert jax.config.jax_compilation_cache_dir == want
+    assert jax.config.jax_persistent_cache_min_compile_time_secs == 0.5
     assert CHECKOUT == REPO
 
 
@@ -37,10 +38,12 @@ def test_compile_cache_env_sets_nothing(monkeypatch, tmp_path):
     import jax
 
     from hisat2_tpu.utils.compile_cache import enable_compile_cache
-    before = jax.config.jax_compilation_cache_dir
+    before = (jax.config.jax_compilation_cache_dir,
+              jax.config.jax_persistent_cache_min_compile_time_secs)
     monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
     assert enable_compile_cache() == str(tmp_path)
-    assert jax.config.jax_compilation_cache_dir == before
+    assert (jax.config.jax_compilation_cache_dir,
+            jax.config.jax_persistent_cache_min_compile_time_secs) == before
 
 
 @pytest.mark.parametrize("env_set", [True, False])

@@ -59,6 +59,6 @@ def test_ref_chars_fly_scale_gpu(gpu_device):
 
 
 @pytest.mark.gpu
-def test_topk_tie_order_gpu(gpu_device):
+def test_topk_tie_order_gpu(gpu_device, cpu_backend):
     res = dc.topk_tie_mismatches(gpu_device)
     assert not any(res.values()), res
